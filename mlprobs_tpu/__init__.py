@@ -1,7 +1,8 @@
-"""mlprobs_tpu — a TPU-native MSA engine with the capabilities of MLProbs.
+"""mlprobs_tpu — an accelerator MSA engine with the capabilities of MLProbs.
 
-A ground-up JAX/XLA/Pallas re-design of the MLProbs data-centric MSA
-pipeline (reference: kuangmeng/MLProbs).  The pipeline chains:
+A ground-up JAX/XLA re-design of the MLProbs data-centric MSA pipeline
+(reference: kuangmeng/MLProbs), run on an NVIDIA H100.  The pipeline
+chains:
 
   1. family feature extraction (all-pairs Viterbi percent identity),
   2. a strategy classifier choosing progressive / non-progressive alignment,
@@ -12,9 +13,11 @@ pipeline (reference: kuangmeng/MLProbs).  The pipeline chains:
   5. selective realignment of column blocks with a QuickProbs-style aligner,
   6. acceptance testing and recombination into the final MSA.
 
-All O(L^2) dynamic programs run as batched JAX row-scans / Pallas kernels on
-TPU; the O(N^3 L) consistency transform runs as one masked block matmul on
-the MXU; host code handles trees, traceback and orchestration.
+The O(L^2) pair dynamic programs run as batched anti-diagonal JAX scans on
+the device, the O(N^3 L^3) consistency transform as one masked f32 matmul
+over the dense posterior tensor; families too small to pay for the device
+run the native C++/OpenMP host engines.  Host code handles trees,
+traceback and orchestration.
 """
 
 __version__ = "0.1.0"

@@ -1,4 +1,4 @@
-"""Family aligner: the TPU-native equivalent of the reference aligners.
+"""Family aligner: the device-engine equivalent of the reference aligners.
 
 `align_family(..., config="pnp")` reproduces the progressive path of
 baseMSA/C_P_NP_Aln (pdoAlign, MSA.cpp:895-1081): model-adaptation test,
@@ -68,7 +68,9 @@ def family_viterbi_stats(
     col_acc = np.zeros(cap, dtype=np.float64)
     sp_sum, sp_cols = 0.0, 0.0
 
-    if pairwise._native_route(seqs, pair_list):
+    # the pass runs before the family's posterior mode is known, so it
+    # follows the mix-mode route
+    if pairwise._native_route(seqs, "mix", pair_list):
         # fully-native -G pass: Viterbi DP + traceback + stats in
         # C++/OpenMP, no device traffic (MSA.cpp:646-762 role)
         from mlprobs_tpu.ops import viterbi as vit
@@ -85,7 +87,7 @@ def family_viterbi_stats(
                 sp_sum, sp_cols, with_features,
             )
 
-    if pairwise._engine() in ("wavefront", "pallas"):
+    if pairwise._engine() == "wavefront":
         # device traceback: only per-pair scalars + the per-step score
         # table cross the host boundary
         for chunk, plen, matches, scores_rev in (
@@ -178,11 +180,11 @@ _MODE_BY_PID = {0: "mix", 1: "mix", 2: "local", 3: "partition",
 
 
 def _cons_engine() -> str:
-    """Consistency engine: "device" keeps posterior planes in HBM and
-    runs the relaxation as masked matmuls on the MXU (the TPU production
-    path); families over the HBM budget, tiny families, or "host" fall
-    back to the native-OpenMP / scipy CSR path.  Read per call so the
-    OOM-recovery ladder can retarget a live process."""
+    """Consistency engine: "device" keeps posterior planes in device
+    memory and runs the relaxation as masked matmuls (the accelerator
+    production path); families over the device budget, tiny families,
+    or "host" fall back to the native-OpenMP / scipy CSR path.  Read
+    per call so the OOM-recovery ladder can retarget a live process."""
     return os.environ.get("MLPROBS_CONSISTENCY_ENGINE", "device")
 
 
@@ -200,7 +202,7 @@ def host_engines():
     """Force every stage onto the host: scan/wavefront posterior engines
     placed on the CPU backend, native/scipy consistency.  The reference's
     fallback ladder re-runs a *working* binary (MLProbs.py:84-99); after
-    a device OOM the TPU allocator may be poisoned, so the equivalent
+    a device OOM the device allocator may be poisoned, so the equivalent
     here is a path that never touches the accelerator."""
     import jax
 
@@ -274,10 +276,19 @@ def align_family(
     """
     if report is None:
         report = {}
-    report["posterior_engine"] = pairwise._engine()
     msa = MSA.from_unaligned(records)
     seqs = [np.asarray(s[s >= 0]) for s in msa.rows]
     n = len(seqs)
+
+    def note_engine(posterior_mode: str) -> None:
+        # the engine that will actually run the posterior stage: small
+        # families route to the native host engine
+        # (pairwise._native_route)
+        report["posterior_engine"] = (
+            "native" if pairwise._native_route(seqs, posterior_mode)
+            else pairwise._engine()
+        )
+
     if n == 1:
         return msa
     rng = GlibcRand(1)
@@ -308,6 +319,7 @@ def align_family(
         from mlprobs_tpu.align.refine_np import np_refinement
 
         np_mode = {0: "mix", 1: "mix", 2: "local"}.get(pid, "partition")
+        note_engine(np_mode)
         dp_seqs = (_partition_dp_seqs(seqs) if np_mode == "partition"
                    else seqs)
         posts = {}
@@ -337,6 +349,7 @@ def align_family(
         from mlprobs_tpu.core.config import DEFAULT as _DEF
 
         rcfg = _DEF.realigner
+        note_engine("qp")
         tensor = None
         if _cons_engine() == "device":
             try:
@@ -410,7 +423,7 @@ def align_family(
                 report["consistency_engine"] = "host"
                 posts = _host_weighted_relax(tensor.extract_csrs())
         elif accept_all and over_budget:
-            # over the whole-tensor HBM gate: sector-tiled device
+            # over the whole-tensor memory gate: sector-tiled device
             # relaxation (RelaxationSector.cpp role); demoted to the
             # host path if even the sector plan cannot fit, or if the
             # device still exhausts (never poison the family)
@@ -436,6 +449,8 @@ def align_family(
                 # stochastic-filter regime: host relaxation, but the
                 # posteriors come from the already-built device tensor
                 posts = tensor.extract_csrs()
+                report["consistency_engine"] = "host"
+                report["consistency_downgrade"] = "stochastic_filter"
             posts = _host_weighted_relax(posts)
         if keep is not None:
             keep["posts"] = posts
@@ -481,6 +496,7 @@ def align_family(
         STATS.log_device_memory("quickprobs")
         return out
 
+    note_engine(mode)
     dp_seqs = _partition_dp_seqs(seqs) if mode == "partition" else seqs
     tensor = None
     if _cons_engine() == "device":
@@ -513,8 +529,8 @@ def align_family(
         if _cons_engine() == "device" and str(
             report.get("consistency_downgrade", "")
         ).startswith("over_budget"):
-            # over the whole-tensor HBM gate: sector-tiled device
-            # relaxation keeps the plain baseMSA transform on the MXU
+            # over the whole-tensor memory gate: sector-tiled device
+            # relaxation keeps the plain baseMSA transform on the device
             # (RelaxationSector.cpp role); any residual device
             # exhaustion demotes to the host transform
             from mlprobs_tpu.align import sector as sectorlib

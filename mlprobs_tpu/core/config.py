@@ -73,16 +73,24 @@ class RealignerConfig:
 
 @dataclass
 class EngineConfig:
-    """TPU engine tier (no reference analogue: batching/memory plan)."""
+    """Device engine tier (no reference analogue: batching/memory plan).
+
+    The *_budget_frac fields are fractions of the device allocator's
+    limit (utils/devmem.bytes_limit)."""
 
     length_bucket: int = 128
     max_batch_elems: int = 2**25
     topk_per_row: int = 16
     host_mwt_area: int = 2048 * 2048
     extract_topk: int = 64            # rows pulled from device consistency
-    cons_budget_bytes: float = 4e9    # HBM gate for the dense tensor
+    # wavefront DP planes, planned at ~80 bytes per (pair, cell)
+    wf_budget_frac: float = 0.5625
+    # dense (N, N, Lp, Lp) consistency tensor; building and relaxing it
+    # peaks at ~5.3x the tensor (22.6 GB for a 4.29 GB tensor, measured
+    # on one H100), so the peak stays under ~85% of the limit
+    cons_budget_frac: float = 0.16
     # sector-tiled relaxation (families over the dense-tensor gate):
-    sector_budget_bytes: float = 8e9  # two panels + output + staging
+    sector_budget_frac: float = 0.5   # two panels + output + staging
     sector_extract_topk: int = 24     # per-row entries shipped to host
 
 

@@ -4,7 +4,7 @@ Reference: ProbabilisticModel::ComputeNewParameters
 (baseMSA/C_P_NP_Aln/ProbabilisticModel.h:586-788).  The reference ships
 this for offline parameter training; the pipeline never calls it
 (MSA.cpp uses fixed Defaults.h parameters), but it is part of the
-library surface, so it gets a TPU-native form: full-state forward and
+library surface, so it gets a device form: full-state forward and
 backward planes from one lax.scan each, expected transition /
 initial-state / emission counts as vectorised log-sum-exp reductions
 over the (Lx+1, Ly+1) grid, and the reference's exact normalisation

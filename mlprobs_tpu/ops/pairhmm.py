@@ -10,7 +10,7 @@ Implements both posterior models of the reference base aligner
   odds-ratio formulation where all emissions are divided by the random
   background; same file, `flag=false` branches.
 
-TPU formulation: a `lax.scan` over rows carries the previous row of every
+Row-scan formulation: a `lax.scan` over rows carries the previous row of every
 state.  States consuming x depend only on the previous row (element-wise);
 states consuming y satisfy a first-order affine recurrence within the row,
 resolved in O(log L) with an associative scan (see ops/semiring.py).

@@ -2,7 +2,7 @@
 
 Reference: MSAPartProbs.cpp partf (:400-660) / revers_partf (:78-396) /
 ComputePostProbs (:665-727).  The reference computes in probability space
-with `long double`; the TPU formulation works in log space (float32), the
+with `long double`; this formulation works in log space (float32), the
 same trick the reference's own GPU port uses
 (QuickProbs Kernels/PartitionLogarithm.cl).
 

@@ -35,13 +35,37 @@ LOG_ZERO = np.float32(-2e20)
 THR = np.float32(7.5)  # LOG_UNDERFLOW_THRESHOLD
 
 
+def _rounded(p, zero):
+    """The f32 product `p`, rounded as an operation of its own.
+
+    XLA:CPU contracts a multiply and the add that consumes it into one
+    FMA (a single rounding); XLA:GPU rounds both, as the native qp
+    engine does (mul<true> in native/mlprobs_native.cpp).  In log space
+    a one-ulp difference at |value| ~ 1e3 moves a posterior by ~1e-4,
+    so the product passes through an integer XOR with `zero`: an int32
+    0 that the compiler cannot prove to be 0 (it is computed from the
+    data), so it cannot fuse the product into the add, on any backend."""
+    bits = jax.lax.bitcast_convert_type(p, jnp.int32) ^ zero
+    return jax.lax.bitcast_convert_type(bits, jnp.float32)
+
+
+def _horner(coeffs, x, zero):
+    """((c0 * x + c1) * x + ...) + cn in f32, every product rounded."""
+    acc = jnp.float32(coeffs[0])
+    for c in coeffs[1:]:
+        acc = _rounded(acc * x, zero) + jnp.float32(c)
+    return acc
+
+
 def lookup_float(x):
     """Piecewise-cubic log1p(exp(x)) on [0, 7.5] (LOOKUP_FLOAT)."""
     x = x.astype(jnp.float32)
+    # x >= 0 (or -0.0): its bits are >= 0, so this is 0 (at -0.0 it
+    # flips the sign of zero products only)
+    zero = jnp.minimum(jax.lax.bitcast_convert_type(x, jnp.int32), 0)
 
-    def h(a, b, c, d):
-        return ((jnp.float32(a) * x + jnp.float32(b)) * x
-                + jnp.float32(c)) * x + jnp.float32(d)
+    def h(*coeffs):
+        return _horner(coeffs, x, zero)
 
     p1 = h(-0.009350833524763, 0.130659527668286,
            0.498799810682272, 0.693203116424741)
@@ -73,11 +97,12 @@ def exp_ref(x):
     """Branch-polynomial EXP (ScoreType.h:40-60); exp(x) for x > 0,
     0 below -16."""
     x = x.astype(jnp.float32)
+    # x <= 0 (the polynomials' domain): its bits are negative or 0
+    # (+0.0), so this is 0
+    zero = jnp.maximum(jax.lax.bitcast_convert_type(x, jnp.int32), 0)
 
-    def p(a, b, c, d, e):
-        return (((jnp.float32(a) * x + jnp.float32(b)) * x
-                 + jnp.float32(c)) * x + jnp.float32(d)) * x \
-            + jnp.float32(e)
+    def p(*coeffs):
+        return _horner(coeffs, x, zero)
 
     m05 = p(0.03254409303190190000, 0.16280432765779600000,
             0.49929760485974900000, 0.99995149601363700000,

@@ -1,6 +1,6 @@
 """Log/tropical-semiring primitives for row-scan dynamic programs.
 
-The TPU-native formulation of the pair-HMM / partition-function DPs runs a
+The row-scan formulation of the pair-HMM / partition-function DPs runs a
 `lax.scan` over rows.  Within a row, states that consume the column
 sequence satisfy a first-order affine recurrence
 

@@ -1,6 +1,6 @@
 """Anti-diagonal wavefront DP engine in scaled probability space.
 
-The TPU-native reformulation of the posterior stage's inner loops.  The
+The accelerator formulation of the posterior stage's inner loops.  The
 reference computes pair-HMM / partition-function DPs either as OpenMP
 row loops (baseMSA ProbabilisticModel.h:153-274, MSAPartProbs.cpp:400-660)
 or as OpenCL anti-diagonal wavefront kernels (QuickProbs
@@ -12,9 +12,10 @@ wavefront formulation expressed as one `lax.scan` over anti-diagonals:
   (i-1,j-1) / (i-1,j) / (i,j-1) become rows d-2 (lane j-1) and d-1
   (lanes j, j-1): every state update is an element-wise FMA plus a
   lane shift.  No within-row associative scans (unlike ops/pairhmm.py),
-  so a diagonal step costs a handful of vector ops.  On this TPU stack
-  a loop step has a large fixed launch cost, so the engine fuses all
-  requested models into one scan and batches pairs wide.
+  so a diagonal step costs a handful of vector ops.  Each scan step
+  launches its own device kernels, whose fixed cost dominates a step,
+  so the engine fuses all requested models into one scan and batches
+  pairs wide.
 
 * **Scaled probability space** — instead of log-space logaddexp chains,
   states are probabilities rescaled per diagonal by an exact power of
@@ -33,7 +34,7 @@ wavefront formulation expressed as one `lax.scan` over anti-diagonals:
   are embedded **right-aligned** in the padded frame (a plain jnp.flip
   of the padded array), which makes the fwd/rev plane correspondence
   the *static* remap  bwd(i,j) = am_rev[2*Lp+2-d, Lp+1-j]  for every
-  model — no per-pair gathers (slow on TPU).  Offsets (ox, oy) shift
+  model — no per-pair index arithmetic.  Offsets (ox, oy) shift
   the DP origin per pair; the padding class (20) has zero emission
   probability, so cells outside the embedded sequences stay exactly
   zero without masking.
@@ -44,6 +45,11 @@ wavefront formulation expressed as one `lax.scan` over anti-diagonals:
   all operate on skewed planes, so the expensive unskew gather never
   happens.  Host code maps (d, j) -> (i, j) = (d - j, j) when building
   CSR posteriors (align.pairwise.topk_diag_to_csr).
+
+* **Exact emission lookups** — per-residue table entries are gathered
+  (`_class_rows`, `_pick`), never contracted against one-hot masks: a
+  float32 contraction may run in TF32 on a GPU and round every emission
+  to ~3 decimal digits.
 
 Models: "hmm5" (5-state double-affine), "local" (3-state odds-ratio
 local HMM), "partition" (Probalign Zm/Ze/Zf).  Semantics match the
@@ -110,17 +116,22 @@ PROB_TABLES = {
 }
 
 
-def _onehot21(cls):
-    io = jax.lax.broadcasted_iota(jnp.int32, cls.shape + (21,), cls.ndim)
-    return (cls[..., None].astype(jnp.int32) == io).astype(jnp.float32)
+def _class_rows(tab, cls):
+    """tab[cls]: the (21, ...) table's row for every class in `cls`
+    (an exact gather; cls holds alphabet classes 0..20)."""
+    return jnp.take(tab, cls.astype(jnp.int32), axis=0, mode="clip")
 
 
 def _lane_table(ygrid, pm):
     """colt[b, j, c] = pm[c, ygrid[b, j]]  -> (B, W, 21)."""
-    return jnp.einsum(
-        "bwc,dc->bwd", _onehot21(ygrid), pm,
-        preferred_element_type=jnp.float32,
-    )
+    return _class_rows(pm.T, ygrid)
+
+
+def _pick(colt, xrow):
+    """colt[b, j, xrow[b, j]]: the emission of cell (xrow, lane j)."""
+    return jnp.take_along_axis(
+        colt, xrow.astype(jnp.int32)[..., None], axis=-1, mode="clip"
+    )[..., 0]
 
 
 def _shift1(v):
@@ -181,14 +192,8 @@ def wavefront_forward(
     h5 = "hmm5" in models
     if h5:
         t5 = tables["hmm5"]
-        iy = jnp.einsum(
-            "bwc,cd->bwd", _onehot21(ygrid), t5["pins"],
-            preferred_element_type=jnp.float32,
-        )                                              # (B, W, 2)
-        ixfeed = jnp.einsum(
-            "btc,cd->btd", _onehot21(xfeed), t5["pins"],
-            preferred_element_type=jnp.float32,
-        )                                              # (B, 3Lp+2, 2)
+        iy = _class_rows(t5["pins"], ygrid)           # (B, W, 2)
+        ixfeed = _class_rows(t5["pins"], xfeed)       # (B, 3Lp+2, 2)
         T5, init5 = t5["T"], t5["init"]
     if "local" in models:
         tl = tables["local"]
@@ -231,7 +236,6 @@ def wavefront_forward(
     def step(carry, d):
         start = Lp - d + (Lp + 1)
         xrow = jax.lax.dynamic_slice(xfeed, (0, start), (B, W))
-        xoh = _onehot21(xrow)                          # (B, W, 21)
         irow = d - lane                                # embedded row index
         at_term = (d == dterm).astype(jnp.float32)
 
@@ -243,10 +247,7 @@ def wavefront_forward(
             m1, x11, y11, x21, y21 = c["d1"]
             m2, x12, y12, x22, y22 = c["d2"]
             rc, s1 = c["r"][:, None], c["s1"]
-            em = jnp.einsum(
-                "bwc,bwc->bw", xoh, colt["hmm5"],
-                preferred_element_type=jnp.float32,
-            )
+            em = _pick(colt["hmm5"], xrow)
             ix = jax.lax.dynamic_slice(ixfeed, (0, start, 0), (B, W, 2))
             # e2s1 may overflow to inf long after the terminal diagonal;
             # it is only ever *selected* where injections fire (small s1),
@@ -305,10 +306,7 @@ def wavefront_forward(
             lm1, lxs1, lys1 = c["d1"]
             lm2, lxs2, lys2 = c["d2"]
             rc, s1 = c["r"][:, None], c["s1"]
-            em = jnp.einsum(
-                "bwc,bwc->bw", xoh, colt["local"],
-                preferred_element_type=jnp.float32,
-            )
+            em = _pick(colt["local"], xrow)
             e2s1 = jnp.exp2(s1)[:, None]
             # start-anywhere "1" is valid only inside the true grid
             inb = (
@@ -346,10 +344,7 @@ def wavefront_forward(
             zm1, ze1, zf1 = c["d1"]
             zm2, ze2, zf2 = c["d2"]
             rc, s1 = c["r"][:, None], c["s1"]
-            em = jnp.einsum(
-                "bwc,bwc->bw", xoh, colt["partition"],
-                preferred_element_type=jnp.float32,
-            )
+            em = _pick(colt["partition"], xrow)
             e2s1 = jnp.exp2(s1)[:, None]
             row0 = irow == oxc
             col0 = lane_oy
@@ -530,7 +525,7 @@ def unskew_posterior(p_skew):
     Grid cell (i, j) (0-based posterior entry) lives at skew row
     d = i + j + 2, lane j + 1.  One device gather per batch; used by the
     dense on-device consistency stage, which wants grid-space planes for
-    the MXU contraction (align.consistency.relax_dense_rounds).
+    its matmul (align.consistency.relax_dense_rounds).
     """
     D, B, W = p_skew.shape
     lp = W - 1
@@ -602,17 +597,9 @@ def viterbi_wavefront(xp, yp, lx, ly, p, vinit):
     ygrid = jnp.concatenate(
         [jnp.full((B, 1), PAD, yp.dtype), yp], axis=1
     )
-    oh_y = _onehot21(ygrid)
-    colt = jnp.einsum(
-        "bwc,dc->bwd", oh_y, lm, preferred_element_type=jnp.float32
-    )                                               # (B, W, 21)
-    liy = jnp.einsum(
-        "bwc,c->bw", oh_y, lins, preferred_element_type=jnp.float32
-    )                                               # (B, W)
-    lixfeed = jnp.einsum(
-        "btc,c->bt", _onehot21(xfeed), lins,
-        preferred_element_type=jnp.float32,
-    )                                               # (B, 3Lp+2)
+    colt = _lane_table(ygrid, lm)                   # (B, W, 21)
+    liy = _class_rows(lins, ygrid)                  # (B, W)
+    lixfeed = _class_rows(lins, xfeed)              # (B, 3Lp+2)
 
     dterm = (lx + ly).astype(jnp.int32)
     term_sel = (lane == ly[:, None]).astype(jnp.float32)
@@ -623,10 +610,7 @@ def viterbi_wavefront(xp, yp, lx, ly, p, vinit):
         m1, x1, y1, m2, x2, y2, term = carry
         start = Lp - d + (Lp + 1)
         xrow = jax.lax.dynamic_slice(xfeed, (0, start), (B, W))
-        em = jnp.einsum(
-            "bwc,bwc->bw", _onehot21(xrow), colt,
-            preferred_element_type=jnp.float32,
-        )
+        em = _pick(colt, xrow)
         lix = jax.lax.dynamic_slice(lixfeed, (0, start), (B, W))
 
         cm = _shift1(m2) + lt[0, 0]
@@ -722,9 +706,7 @@ def viterbi_path_stats(dirs_skew, ends, xp, yp, lx, ly, blosum):
         )[:, 0].astype(jnp.int32)
         is_b = active & is_m
         matches = matches + jnp.where(is_b & (xc == yc), 1, 0)
-        s = jnp.sum(
-            _onehot21(xc) * bl21[:, yc].T, axis=1
-        )                                            # blosum[xc, yc]
+        s = bl21[xc, yc]                             # blosum[xc, yc]
         s = jnp.where(
             is_b & (xc < PAD) & (yc < PAD) & (s < 10.0), s, 0.0
         )

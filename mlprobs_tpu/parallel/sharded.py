@@ -1,9 +1,10 @@
 """Multi-chip sharded pipeline stages.
 
-`sharded_posterior_step` is the distributed form of the posterior stage:
-the batch-of-pairs axis is sharded across chips (pure data parallelism —
-each chip row-scans its pairs) and the consistency contraction
-all-gathers the z-rows over ICI inside a shard_map.
+`make_sharded_posterior_step` is the distributed form of the posterior
+stage: the batch-of-pairs axis is sharded across devices (pure data
+parallelism — each device sweeps its own pairs) and the consistency
+contraction all-gathers the z-rows inside a shard_map (over NVLink on a
+multi-GPU host).
 
 This is what the reference cannot do at all (single process, OpenMP);
 see SURVEY §2.9 / §5.8 for the mapping.
@@ -27,11 +28,12 @@ _MODELS = ("hmm5", "partition", "local")
 def make_sharded_posterior_step(mesh: Mesh):
     """Jitted (X, Y, LX, LY) -> (posteriors, scores), pairs-sharded.
 
-    X/Y: (B, Lp) int8 with B divisible by the mesh size; each chip runs
-    the fused wavefront engine (ops/wavefront.py) on its local shard of
-    pairs — pure data parallelism over the pair axis, the TPU mapping of
-    the reference's OpenMP pair loop (SURVEY §2.9).  Outputs keep the
-    pairs sharding, so downstream per-shard work stays chip-local.
+    X/Y: (B, Lp) int8 with B divisible by the mesh size; each device
+    runs the fused wavefront engine (ops/wavefront.py) on its local
+    shard of pairs — pure data parallelism over the pair axis, the
+    device mapping of the reference's OpenMP pair loop (SURVEY §2.9).
+    Outputs keep the pairs sharding, so downstream per-shard work stays
+    device-local.
     Posteriors are returned unskewed (B, Lp, Lp).
     """
     tabs_f, tabs_r = pairwise._wf_tables("mix", None)
@@ -84,16 +86,18 @@ def make_sharded_posterior_step(mesh: Mesh):
     return jax.jit(fn)
 
 
+@functools.lru_cache(maxsize=8)
 def make_sharded_consistency(mesh: Mesh, num_seqs: int,
                              cutoff: float = 0.01):
     """One consistency round over a pairs-sharded dense (N, N, Lp, Lp).
 
-    The i-axis (rows of the pair matrix) is sharded; each chip all-gathers
-    the full tensor's z-rows over ICI and contracts its local row block on
-    the MXU — the multi-chip form of the production
+    The i-axis (rows of the pair matrix) is sharded; each device
+    all-gathers the full tensor's z-rows and contracts its local row
+    block — the multi-device form of the production
     consistency.relax_dense_rounds update (same coefficient
     parametrisation: R_ij = sc*S_ij + zs*sum_z w_z S_iz @ S_zj on a
-    zero-diagonal tensor, masked to support and re-thresholded).
+    zero-diagonal tensor, masked to support and re-thresholded at
+    `cutoff`; the same f32 precision).
     """
 
     def local_round(s_local, self_coef, z_scale, w):
@@ -107,10 +111,11 @@ def make_sharded_consistency(mesh: Mesh, num_seqs: int,
             w,
             s_all,
             preferred_element_type=jnp.float32,
+            precision=jax.lax.Precision.HIGHEST,
         )
         r = (self_coef[:, :, None, None] * s_local
              + z_scale[:, :, None, None] * prod)
-        return jnp.where((s_local >= cutoff) & (r >= cutoff), r, 0.0)
+        return jnp.where((s_local > 0) & (r >= cutoff), r, 0.0)
 
     fn = shard_map(
         local_round,

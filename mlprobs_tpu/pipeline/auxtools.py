@@ -54,7 +54,7 @@ def annotation_scores(alignment: MSA, posts: dict) -> np.ndarray:
 def write_clustal(alignment: MSA, width: int = 60) -> str:
     """ClustalW-flavoured .aln text (MultiSequence::WriteALN format)."""
     buf = io.StringIO()
-    buf.write("MLPROBS-TPU multiple sequence alignment\n//\n\n")
+    buf.write("MLPROBS multiple sequence alignment\n//\n\n")
     names = [h.split()[0] if h else f"seq{i}"
              for i, h in enumerate(alignment.headers)]
     pad = max(len(s) for s in names) + 4

@@ -1,6 +1,6 @@
 """Command-line interface.
 
-    python -m mlprobs_tpu.pipeline.cli align <in.fasta> <out.msa> [-v]
+    python -m mlprobs_tpu.pipeline.cli align <in.fasta> <out.msa> [-v] [--report R.json]
     python -m mlprobs_tpu.pipeline.cli base  <in.fasta> <out.msa> [--config pnp|quickprobs]
     python -m mlprobs_tpu.pipeline.cli bench <suite-dir> [--out DIR] [--limit N]
 
@@ -11,6 +11,7 @@ runs just the family aligner (the c_p_np_aln / quickprobs role);
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 import time
@@ -29,6 +30,10 @@ def _cmd_align(args) -> int:
     if args.verbose:
         print(f"[ELAPSED TIME] Total Running time: {dt:.3f} sec.")
         print(json.dumps(rep.timings, default=float))
+    if args.report:
+        Path(args.report).write_text(
+            json.dumps(dataclasses.asdict(rep), default=float)
+        )
     return 0
 
 
@@ -153,6 +158,9 @@ def main(argv=None) -> int:
     a.add_argument("input")
     a.add_argument("output")
     a.add_argument("-v", "--verbose", action="store_true")
+    a.add_argument("--report", default=None,
+                   help="write the stage report (engines, timings, "
+                        "fallbacks) to this JSON file")
     a.set_defaults(fn=_cmd_align)
 
     b = sub.add_parser("base", help="family aligner only")

@@ -1,6 +1,6 @@
 """The MLProbs pipeline driver.
 
-TPU-native equivalent of MLProbs.py: feature extraction -> classifier 1
+Device-engine equivalent of MLProbs.py: feature extraction -> classifier 1
 (P/NP strategy) -> base MSA -> column scores -> classifier 3 (RCR/RIR)
 -> [classifier 2 (min region length)] -> region segmentation -> selective
 block realignment with acceptance -> recombination, with the reference's
@@ -63,13 +63,13 @@ def _fallback_align(records, rep: "PipelineReport", device_suspect: bool):
     """Whole-family QuickProbs-role fallback that ALWAYS returns an MSA.
 
     The reference's ladder re-runs a binary that still works
-    (MLProbs.py:84-99); here the one failure mode a TPU has — device
+    (MLProbs.py:84-99); here the accelerator's own failure mode — device
     memory exhaustion — can poison the allocator for the rest of the
     process, so an OOM (`device_suspect`) skips the accelerator and runs
     the fallback on host engines directly.  A non-OOM crash retries on
-    the device first, then degrades to host if that also dies.  The
-    round-4 ladder re-entered the same dead device and took 92 campaign
-    families down with it (VERDICT r04 item 1)."""
+    the device first, then degrades to host if that also dies: a ladder
+    that re-enters a dead device takes every later family down with it.
+    The fallback counts under STATS "pipeline.fallback_host"."""
     from mlprobs_tpu.align.aligner import host_engines
 
     if not device_suspect:

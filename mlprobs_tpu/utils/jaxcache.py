@@ -1,20 +1,26 @@
 """Persistent XLA compilation cache.
 
-The pipeline runs one process per family in benchmark mode (like the
-reference's script.py); without a persistent cache every process repays
-20-60 s of XLA compiles.  Importing mlprobs_tpu enables the on-disk
-cache so compiles amortise across processes.
+Every process that runs the pipeline repays its XLA compiles unless they
+persist; importing mlprobs_tpu enables the on-disk cache so compiles
+amortise across processes.
 
-The cache directory is keyed per *resolved backend*.  XLA:CPU entries
-are AOT executables compiled for an LLVM target-feature string that
-includes pseudo-features (+prefer-no-scatter, +prefer-no-gather, ...)
-derived from the detected CPU *model*, not just its ISA flag set — two
-hosts with identical /proc/cpuinfo flags but different models can get
-different feature strings, and loading the other host's blob flips
-instruction selection (cpu_aot_loader.cc warns of SIGILL) and DP
-tie-breaks.  The key therefore hashes jaxlib version + CPU model name +
-flags; accelerator backends hash the PJRT platform_version (compiler
-build / serialization version).
+Where the cache lives:
+
+* `JAX_COMPILATION_CACHE_DIR`, when set, is used as it is: no other
+  directory and no subdirectory.
+* Otherwise a fixed path inside the checkout, `<repo>/.jax_cache/<tag>`
+  (git-ignored), with the tag keyed per *resolved backend* (see
+  backend_tag).
+
+XLA:CPU entries are not persisted: a process whose backend is the CPU
+keeps no cache.  CPU executables are AOT blobs compiled for an LLVM
+target-feature string that includes pseudo-features (+prefer-no-scatter,
++prefer-no-gather, ...) derived from the detected CPU *model*, not just
+its ISA flag set, and loading another host's blob flips instruction
+selection (cpu_aot_loader.cc warns of SIGILL) and DP tie-breaks.  An
+accelerator process still compiles a few XLA:CPU programs (host
+fallback engines, CPU references); the host-CPU fingerprint goes into
+every cache key it writes, so those entries never load on another host.
 """
 from __future__ import annotations
 
@@ -72,39 +78,42 @@ def backend_tag(backend) -> str:
     return f"{backend.platform}-{digest}"
 
 
+# fixed cache root when JAX_COMPILATION_CACHE_DIR is unset
+CACHE_ROOT = Path(__file__).resolve().parents[2] / ".jax_cache"
+
+
+def cache_dir(backend, environ=os.environ) -> str | None:
+    """The compile-cache directory for a live backend, or None for none
+    (the CPU backend)."""
+    if backend.platform == "cpu":
+        return None
+    env = environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    return str(CACHE_ROOT / backend_tag(backend))
+
+
 def enable() -> None:
     import jax
+    from jax._src import cache_key, xla_bridge
 
-    cache_dir = os.environ.get(
-        "MLPROBS_JAX_CACHE",
-        str(Path.home() / ".cache" / "mlprobs_jax"),
-    )
     # Resolve the actual backend (initialises it): the key must reflect
-    # what will execute, not the JAX_PLATFORMS env var — the unkeyed
-    # "default" fallback is exactly how cross-host AOT blobs used to
-    # collide.
+    # what will execute, not the JAX_PLATFORMS env var.  A process with
+    # no usable backend keeps no cache; its first JAX call reports why.
     try:
-        from jax._src import xla_bridge
-
         backend = xla_bridge.get_backend()
-        tag = backend_tag(backend)
-    except Exception:
-        backend = None
-        tag = "default"
-    if backend is not None and backend.platform == "cpu":
-        # Do NOT persist XLA:CPU entries.  CPU executables are AOT blobs
-        # whose LLVM target features come from CPUID host detection; the
-        # CPUID-derived key above still collides across virtualised
-        # hosts whose /proc/cpuinfo agrees but whose LLVM feature
-        # baking differs (observed: blobs compiled with +amx-fp16/+avx10
-        # loading on a host without them — cpu_aot_loader warns of
-        # SIGILL and DP tie-breaks can flip).  In-process CPU compiles
-        # are cheap; a wrong-machine executable is silent corruption.
-        # Accelerator backends keep the cache (their serialized
-        # artifacts are device-targeted, not host-CPUID-targeted).
+    except RuntimeError:
         return
-    cache_dir = str(Path(cache_dir) / tag)
-    Path(cache_dir).mkdir(parents=True, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", cache_dir)
+    path = cache_dir(backend)
+    if path is None:
+        # no XLA:CPU entries, not even through JAX_COMPILATION_CACHE_DIR,
+        # which JAX would otherwise honour on its own
+        jax.config.update("jax_enable_compilation_cache", False)
+        return
+    fingerprint = hashlib.sha256(_cpu_fingerprint().encode()).hexdigest()
+    cache_key.custom_hook = lambda: fingerprint
+    Path(path).mkdir(parents=True, exist_ok=True)
+    jax.config.update("jax_compilation_cache_dir", path)
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
     jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
+

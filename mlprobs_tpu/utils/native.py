@@ -1,40 +1,54 @@
 """ctypes bindings to the native runtime (native/mlprobs_native.cpp).
 
-Builds the shared library on first use (g++, a second or two) and falls
-back to the pure-Python implementations if a toolchain is unavailable.
+Builds the shared library on first use (g++, a few seconds), and again
+whenever the source is newer than the library, so a process never runs
+a library built from another tree.  Falls back to the pure-Python
+implementations if a toolchain is unavailable.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import os
+import subprocess
 from pathlib import Path
 
 import numpy as np
 
+_ROOT = Path(__file__).resolve().parents[2]
+_SRC = _ROOT / "native" / "mlprobs_native.cpp"
 _LIB_PATH = Path(__file__).resolve().parents[1] / "_native.so"
+
+
+def build(force: bool = False) -> Path:
+    """Compile the library unless it is newer than its source."""
+    if _LIB_PATH.exists() and not force:
+        if not _SRC.exists() or (
+            _LIB_PATH.stat().st_mtime >= _SRC.stat().st_mtime
+        ):
+            return _LIB_PATH
+    # build beside the target and rename: a concurrent process never
+    # loads a half-written library
+    tmp = _LIB_PATH.with_name(f"{_LIB_PATH.name}.{os.getpid()}.tmp")
+    cmd = [
+        "g++", "-O3", "-march=native", "-fopenmp", "-shared", "-fPIC",
+        "-std=c++17", str(_SRC), "-o", str(tmp),
+    ]
+    try:
+        subprocess.run(cmd, check=True)
+        os.replace(tmp, _LIB_PATH)
+    finally:
+        tmp.unlink(missing_ok=True)
+    return _LIB_PATH
 
 
 @functools.lru_cache(maxsize=1)
 def lib() -> ctypes.CDLL | None:
     try:
-        if not _LIB_PATH.exists():
-            from tools.build_native import build
-
-            build()
+        build()
         L = ctypes.CDLL(str(_LIB_PATH))
-    except Exception:
-        try:
-            import subprocess
-            import sys
-
-            root = Path(__file__).resolve().parents[2]
-            subprocess.run(
-                [sys.executable, str(root / "tools" / "build_native.py")],
-                check=True,
-            )
-            L = ctypes.CDLL(str(_LIB_PATH))
-        except Exception:
-            return None
+    except (OSError, subprocess.CalledProcessError):
+        return None
     i8p = ctypes.POINTER(ctypes.c_int8)
     i32p = ctypes.POINTER(ctypes.c_int32)
     f64p = ctypes.POINTER(ctypes.c_double)

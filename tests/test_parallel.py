@@ -69,7 +69,7 @@ def _random_posterior_tensor(rng, n, lp):
 
 
 def test_sharded_consistency_matches_single_device():
-    """The ICI all-gather round == the single-device MXU round."""
+    """The all-gather round over the mesh == the single-device round."""
     from mlprobs_tpu.align import consistency as cons
 
     mesh = pairs_mesh(8)

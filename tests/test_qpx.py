@@ -36,6 +36,37 @@ def test_exp_ref_matches_exp():
     assert float(qpx.exp_ref(jnp.float32(-17.0))) == 0.0
 
 
+_LOOKUP = [(1.0, (-0.009350833524763, 0.130659527668286,
+                  0.498799810682272, 0.693203116424741)),
+           (2.5, (-0.014532321752540, 0.139942324101744,
+                  0.495635523139337, 0.692140569840976)),
+           (4.5, (-0.004605031767994, 0.063427417320019,
+                  0.695956496475118, 0.514272634594009)),
+           (np.inf, (-0.000458661602210, 0.009695946122598,
+                     0.930734667215156, 0.168037164329057))]
+
+
+def _plain_horner(coeffs, x):
+    """Numpy f32 Horner: every product and sum rounded on its own."""
+    acc = np.float32(coeffs[0]) * x
+    for c in coeffs[1:-1]:
+        acc = (acc + np.float32(c)) * x
+    return acc + np.float32(coeffs[-1])
+
+
+@pytest.mark.parametrize("lo,hi", [(0.0, 1.0), (1.0, 2.5), (2.5, 4.5),
+                                   (4.5, 7.5)])
+def test_lookup_float_rounds_every_product(lo, hi):
+    """XLA:CPU would contract each multiply-add into an FMA, XLA:GPU does
+    not; lookup_float must give the same f32 values as plain rounding
+    (the GPU's and the native engine's) on the CPU too."""
+    x = np.random.default_rng(3).uniform(lo, hi, 20000).astype(np.float32)
+    got = np.asarray(jax.jit(qpx.lookup_float)(jnp.asarray(x)))
+    want = np.select([x <= b for b, _ in _LOOKUP],
+                     [_plain_horner(c, x) for _, c in _LOOKUP])
+    np.testing.assert_array_equal(got, want)
+
+
 def test_log_add_absorbs_log_zero():
     v = jnp.float32(-3.25)
     assert float(qpx.log_add(v, jnp.float32(qpx.LOG_ZERO))) == float(v)

@@ -45,7 +45,7 @@ def _random_posts(rng, n, lp):
 
 
 def test_relax_dense_rounds_matches_sparse_oracle():
-    """Production MXU relaxation == the scipy block-matrix oracle."""
+    """Production device relaxation == the scipy block-matrix oracle."""
     rng = np.random.default_rng(2)
     n, lp = 4, 16
     posts, dense = _random_posts(rng, n, lp)
@@ -60,7 +60,7 @@ def test_relax_dense_rounds_matches_sparse_oracle():
 
 
 def test_relax_dense_rounds_weighted_matches_oracle():
-    """Weighted MXU relaxation == relax_sparse_weighted (accept-all)."""
+    """Weighted device relaxation == relax_sparse_weighted (accept-all)."""
     rng = np.random.default_rng(3)
     n, lp = 5, 12
     posts, dense = _random_posts(rng, n, lp)
@@ -81,11 +81,11 @@ def test_device_posterior_tensor_consistency_end_to_end():
     Uses the full-dense cutoff regime on both sides (the device path's
     sparsity semantics — the reference's own, SparseMatrix.h:14)."""
     from mlprobs_tpu.align import pairwise
+    from mlprobs_tpu.bench.simulate import simulate_family
     from mlprobs_tpu.core.alphabet import degap, encode
-    from mlprobs_tpu.core.fasta import read_fasta
 
-    fam = "/root/reference/TEST/sabre/in/sup_387"
-    seqs = [degap(encode(s)) for _, s in read_fasta(fam)][:4]
+    fam = simulate_family(4, 60, 90, seed=387)
+    seqs = [degap(encode(s)) for _, s in fam.records]
     # pin the device path: small families route to the native host
     # engine by default, but this test exercises the tensor machinery
     os.environ["MLPROBS_NATIVE_ROUTE"] = "0"

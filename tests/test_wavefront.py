@@ -285,7 +285,7 @@ def test_viterbi_path_stats_matches_host():
 
 
 def test_long_pair_class_routes_to_host(monkeypatch):
-    """Pairs whose B=1 DP planes exceed the HBM budget take the
+    """Pairs whose B=1 DP planes exceed the device budget take the
     concurrent host row-scan class (QuickPosteriorStage.cpp:141-154
     'very long' role) and still return correct posteriors."""
     import mlprobs_tpu.align.pairwise as pw
@@ -305,9 +305,9 @@ def test_long_pair_class_routes_to_host(monkeypatch):
         }
 
     full = run()
-    # budget that only fits the 128-lane bucket: the (0,1)/(1,2) pairs
+    # budget that only fits the 128-residue bucket: the (0,1)/(1,2) pairs
     # (bucket 384) must fall to the host class
-    monkeypatch.setattr(pw, "_WF_PLANE_BUDGET", 80 * 128 * 128)
+    monkeypatch.setattr(pw, "_wf_plane_budget", lambda: 80 * 128 * 128)
     assert not pw._long_pair_budget_ok(40, 300)
     assert pw._long_pair_budget_ok(40, 35)
     mixed = run()
@@ -339,3 +339,59 @@ def test_pair_batches_use_per_pair_buckets():
             widths[p] = X.shape[1]
     assert widths[(0, 1)] == 128
     assert widths[(0, 2)] == 512 and widths[(1, 2)] == 512
+
+
+def _onehot_lookup(pm, ygrid, xrow):
+    """The one-hot einsum lookup the gathers replaced: pm[x, y] per cell."""
+    def oh(c):
+        return (c[..., None].astype(jnp.int32)
+                == jnp.arange(21)).astype(jnp.float32)
+
+    colt = jnp.einsum("bwc,dc->bwd", oh(ygrid), pm,
+                      precision=jax.lax.Precision.HIGHEST)
+    return jnp.einsum("bwc,bwc->bw", oh(xrow), colt,
+                      precision=jax.lax.Precision.HIGHEST)
+
+
+_ORACLE_POSTERIOR = {
+    "hmm5": "hmm5_posterior_oracle",
+    "local": "local_posterior_oracle",
+    "partition": "partition_posterior_oracle",
+}
+
+
+@pytest.mark.parametrize("model", MODELS)
+def test_emission_gather_matches_onehot_and_oracle(model):
+    """The exact gathers (wavefront._lane_table / _pick / _class_rows)
+    equal the one-hot contraction they replaced, and the wavefront
+    posterior built on them matches the literal numpy oracle."""
+    from tests import oracle
+
+    X, Y, lx, ly = _batch(seed=11, b=3)
+    fwd, rev, params = _run_wavefront(X, Y, lx, ly, (model,))
+    pm = wavefront.PROB_TABLES[model](params[model])["pm"]
+    ygrid = jnp.concatenate(
+        [jnp.full((X.shape[0], 1), wavefront.PAD, Y.dtype), Y], axis=1
+    )
+    xrow = jnp.roll(ygrid, 3, axis=1)[::-1]        # any (B, W) classes
+    got = wavefront._pick(wavefront._lane_table(ygrid, pm), xrow)
+    np.testing.assert_array_equal(
+        np.asarray(got), np.asarray(_onehot_lookup(pm, ygrid, xrow))
+    )
+    if model == "hmm5":
+        pins = wavefront.hmm5_prob_tables(params["hmm5"])["pins"]
+        for k in range(pins.shape[1]):
+            np.testing.assert_array_equal(
+                np.asarray(wavefront._class_rows(pins, ygrid)[..., k]),
+                np.asarray(_onehot_lookup(
+                    jnp.broadcast_to(pins[:, k:k + 1], (21, 21)),
+                    jnp.zeros_like(ygrid), ygrid)),
+            )
+    post = _unskew(wavefront.posterior_skew(fwd, rev, model))
+    p64 = {k: np.asarray(v, np.float64) for k, v in params[model].items()}
+    fn = getattr(oracle, _ORACLE_POSTERIOR[model])
+    for b in range(X.shape[0]):
+        li, lj = int(lx[b]), int(ly[b])
+        want, _ = fn(np.asarray(X[b, :li]), np.asarray(Y[b, :lj]), p64)
+        np.testing.assert_allclose(post[b, :li, :lj], want,
+                                   rtol=2e-3, atol=2e-5)

@@ -1,27 +1,22 @@
 #!/usr/bin/env python
-"""Build the native runtime shared library (g++)."""
+"""Build the native runtime shared library (g++).
+
+    python tools/build_native.py [--force]
+
+Loads utils/native.py by path, without importing the package (whose
+import starts JAX).
+"""
 from __future__ import annotations
 
-import subprocess
+import importlib.util
 import sys
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parents[1]
-SRC = ROOT / "native" / "mlprobs_native.cpp"
-OUT = ROOT / "mlprobs_tpu" / "_native.so"
-
-
-def build(force: bool = False) -> Path:
-    if OUT.exists() and not force:
-        if OUT.stat().st_mtime >= SRC.stat().st_mtime:
-            return OUT
-    cmd = [
-        "g++", "-O3", "-march=native", "-fopenmp", "-shared", "-fPIC",
-        "-std=c++17", str(SRC), "-o", str(OUT),
-    ]
-    subprocess.run(cmd, check=True)
-    return OUT
-
+_NATIVE = (Path(__file__).resolve().parents[1]
+           / "mlprobs_tpu" / "utils" / "native.py")
 
 if __name__ == "__main__":
-    print(build(force="--force" in sys.argv))
+    spec = importlib.util.spec_from_file_location("_native_build", _NATIVE)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    print(mod.build(force="--force" in sys.argv))
